@@ -1,7 +1,7 @@
 """Generate the golden-scenario input file for golden/harness.cpp.
 
 Analytic room (same generator the unit tests use:
-ohm_tsd_slam_tpu/utils/testing.py) with a circular obstacle, a short
+ohm_tsd_slam/utils/testing.py) with a circular obstacle, a short
 trajectory of push poses, and a few raycast query poses.  Everything is
 float64, printed with %.17g so the C++ side parses bit-identical values.
 """
@@ -13,7 +13,7 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from ohm_tsd_slam_tpu.utils.testing import rect_walls, simulate_scan  # noqa: E402
+from ohm_tsd_slam.utils.testing import rect_walls, simulate_scan  # noqa: E402
 
 # grid: 256 cells @ 0.025 m = 6.4 m, 32x32 partitions (LAYOUT_32x32=5,
 # LAYOUT_256x256=8), truncation 3 cells

@@ -15,7 +15,7 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from ohm_tsd_slam_tpu.utils.testing import rect_walls, simulate_scan  # noqa: E402
+from ohm_tsd_slam.utils.testing import rect_walls, simulate_scan  # noqa: E402
 
 # 256 cells @ 0.04 m = 10.24 m (LAYOUT_32x32=5, LAYOUT_256x256=8)
 CELLSIZE = 0.04

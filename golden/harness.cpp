@@ -91,7 +91,7 @@ static void dump_u8(const char* name, const std::vector<uint8_t>& v,
 /* Reassemble the partitioned field into dense [H, W] cell arrays
  * (interior cells only — halos are the propagateBorders copies of
  * neighbor interiors).  Cells of uninitialized partitions dump as NaN
- * with weight 0, matching the TPU framework's dense representation. */
+ * with weight 0, matching the JAX framework's dense representation. */
 static void dump_grid(TsdGrid* grid, const std::string& tag)
 {
   int H = grid->getCellsY();

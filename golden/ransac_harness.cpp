@@ -183,7 +183,7 @@ int main(int argc, char** argv)
 
   /* TwinPointMatching (TwinPointMatching.cpp:89-381): not reachable
    * from the reference's mode enum, but built and traced for parity
-   * (VERDICT r4 missing #4).  Signature differs (no NM argument);
+   *.  Signature differs (no NM argument);
    * transMax = 1.5 as for the other matchers above. */
   double tbest_twin[9];
   {

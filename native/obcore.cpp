@@ -1,4 +1,4 @@
-// Native host-runtime core for the TPU TSD-SLAM framework.
+// Native host-runtime core for the TSD-SLAM framework.
 //
 // C++ equivalent of the reference's host-side infrastructure layers:
 //   * the thread-synchronization surface of ThreadSLAM / ThreadLocalize /

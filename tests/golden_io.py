@@ -190,3 +190,234 @@ def replay_twin(seed: int, idx_s_valid, n_m_valid: int, trials: int,
         r1s.append(r1)
         r2s.append(r2)
     return ctrl, r1s, r2s
+
+
+# ---------------------------------------------------------------------------
+# Full-loop replays (golden/slam_harness.cpp): the same scan sequences
+# through this framework, for the parity tests and the on-card check
+# ---------------------------------------------------------------------------
+
+SLAM_BIN = os.path.join(GOLDEN_DIR, "data", "slam.bin")
+SLAM_NPZ = os.path.join(GOLDEN_DIR, "data", "slam_inputs.npz")
+SLAM_TSD_BIN = os.path.join(GOLDEN_DIR, "data", "slam_tsd.bin")
+SLAM_TSD_NPZ = os.path.join(GOLDEN_DIR, "data", "slam_tsd_inputs.npz")
+
+
+def replay_slam_loop_icp():
+    """Replay slam_inputs.npz through SlamNode.process_scan (mode ICP,
+    float64).  Returns (got_poses [K,3,3], got_flags [K,2] as
+    (reg_error, significant), ref_poses, ref_flags)."""
+    import math
+
+    import jax.numpy as jnp
+
+    from ohm_tsd_slam.config import (
+        FootprintConfig,
+        GridConfig,
+        IcpConfig,
+        RegistrationConfig,
+        RobotConfig,
+        SensorConfig,
+        SlamConfig,
+    )
+    from ohm_tsd_slam.slam import LaserScan, SlamNode
+
+    golden = load_golden(SLAM_BIN)
+    inp = np.load(SLAM_NPZ)
+    scans = inp["scans"]
+    (cellsize, layout_grid, max_trunc, size, ang_res, phi_min, max_range,
+     min_range, low_refl, icp_iters, dist_max, dist_min, trns_max,
+     rot_max, trns_min, rot_min) = inp["params"]
+    fp_w, fp_h = inp["footprint"]
+
+    cfg = SlamConfig(
+        grid=GridConfig(map_size=int(layout_grid), cellsize=float(cellsize),
+                        truncation_radius=float(max_trunc / cellsize)),
+        robots=[RobotConfig(
+            local_offset_yaw=0.2,
+            sensor=SensorConfig(max_range=float(max_range),
+                                min_range=float(min_range),
+                                low_reflectivity_range=float(low_refl),
+                                laser_min_range=0.0),
+            footprint=FootprintConfig(width=float(fp_w),
+                                      height=float(fp_h), x_offset=0.0),
+            registration=RegistrationConfig(
+                trns_thresh=float(trns_max), rot_thresh=float(rot_max),
+                trns_min=float(trns_min), rot_min=float(rot_min),
+                icp=IcpConfig(iterations=int(icp_iters),
+                              dist_filter_max=float(dist_max),
+                              dist_filter_min=float(dist_min))),
+        )],
+    )
+    node = SlamNode(cfg, dtype=jnp.float64)
+
+    got_poses, got_flags = [], []
+    for k in range(len(scans)):
+        ranges = np.where(scans[k] >= 1e29, np.inf, scans[k])
+        msg = LaserScan(ranges=ranges, angle_min=float(phi_min),
+                        angle_increment=float(ang_res),
+                        range_max=float(max_range), stamp=float(k))
+        out = node.process_scan(0, msg)
+        loc = node.localizers[0]
+        got_poses.append(np.asarray(loc.pose))
+        if k == 0:
+            assert out is None
+            got_flags.append((0, 1))                 # init push
+        else:
+            err = out is None or math.isnan(out.x)
+            got_flags.append((int(err), int(np.allclose(
+                np.asarray(loc.last_pose), np.asarray(loc.pose)))))
+    return (np.asarray(got_poses), np.asarray(got_flags),
+            np.asarray(golden["pose_trace"]).reshape(-1, 3, 3),
+            np.asarray(golden["flags"]))
+
+
+def replay_slam_loop_tsd():
+    """Replay slam_tsd_inputs.npz through the localization cycle in the
+    reference's shipped default mode (TSD_PDFMatching seed + ICP, float64),
+    injecting the harness's rand draws (DetRand) into match_tsd so both
+    sides score the SAME candidate sets against the SAME evolving grid.
+    Returns (got_poses, got_flags, ref_poses, ref_flags) as
+    replay_slam_loop_icp does."""
+    import math
+
+    import jax
+    import jax.numpy as jnp
+
+    from ohm_tsd_slam.config import GridConfig, IcpConfig
+    from ohm_tsd_slam.grid import create, push
+    from ohm_tsd_slam.grid.raycast_fast import raycast_fast
+    from ohm_tsd_slam.grid.state import free_footprint
+    from ohm_tsd_slam.registration.icp import IcpParams
+    from ohm_tsd_slam.registration.ransac import (
+        RansacInject,
+        RansacParams,
+        match_tsd,
+        pca_normals,
+    )
+    from ohm_tsd_slam.sensor.polar2d import (
+        SensorPolar2D,
+        data_to_cartesian,
+        standard_mask,
+    )
+    from ohm_tsd_slam.slam.localize import LocalizeParams, localize_step
+
+    golden = load_golden(SLAM_TSD_BIN)
+    inp = np.load(SLAM_TSD_NPZ)
+    scans = inp["scans"]
+    (cellsize, layout_grid, max_trunc, size, ang_res, phi_min, max_range,
+     min_range, low_refl, icp_iters, dist_max, dist_min, trns_max,
+     rot_max, trns_min, rot_min) = inp["params"]
+    fp_w, fp_h = inp["footprint"]
+    (r_trials, r_eps, r_ctl, r_phi_deg, r_zrand, r_seed) = inp["ransac"]
+    gt = inp["gt"]
+
+    geom = SensorPolar2D(size=int(size), angular_res=float(ang_res),
+                         phi_min=float(phi_min),
+                         max_range=float(max_range),
+                         min_range=float(min_range),
+                         low_reflectivity_range=float(low_refl))
+    gcfg = GridConfig(map_size=int(layout_grid), cellsize=float(cellsize),
+                      truncation_radius=float(max_trunc / cellsize))
+    gw = gcfg.size_meters
+    rparams = RansacParams(
+        trials=int(r_trials), eps_thresh=float(r_eps),
+        size_control_set=int(r_ctl),
+        phi_max=math.radians(float(r_phi_deg)),
+        resolution=float(ang_res), zrand_tsd=float(r_zrand))
+    lparams = LocalizeParams(
+        geom=geom,
+        icp=IcpParams.from_config(
+            IcpConfig(iterations=int(icp_iters),
+                      dist_filter_max=float(dist_max),
+                      dist_filter_min=float(dist_min)),
+            bounds=(0.0, gw, 0.0, gw)),
+        trns_max=float(trns_max), rot_max=float(rot_max),
+        trns_min=float(trns_min), rot_min=float(rot_min))
+
+    grid = create(gcfg, dtype=jnp.float64)
+    pose = jnp.asarray(np.array([[np.cos(gt[0][2]), -np.sin(gt[0][2]),
+                                  gt[0][0]],
+                                 [np.sin(gt[0][2]), np.cos(gt[0][2]),
+                                  gt[0][1]],
+                                 [0.0, 0.0, 1.0]]))
+    grid = free_footprint(grid, (float(gt[0][0]), float(gt[0][1])),
+                          float(fp_w), float(fp_h))
+    last_pose = pose
+
+    rr = rparams.pca_search_range // 2
+    N = int(size)
+    key0 = jax.random.PRNGKey(0)
+
+    # jit once (static matcher/localize params): the 24-scan loop would
+    # otherwise retrace the matcher + ICP every scan
+    raycast_j = jax.jit(lambda g, p: raycast_fast(g, geom, p))
+    match_j = jax.jit(
+        lambda k, g, p, mc, mm, sc, sm, inj: match_tsd(
+            k, g, p, mc, mm, sc, sm, rparams, inject=inj))
+    loc_j = jax.jit(
+        lambda g, p, lp, d, m, tp: localize_step(
+            g, p, lp, d, m, lparams, T_prereg=tp))
+    push_j = jax.jit(lambda g, p, d, m: push(g, geom, p, d, m))
+    pca_j = jax.jit(lambda pts, m: pca_normals(pts, m, rr))
+
+    got_poses, got_flags = [], []
+    for k in range(len(scans)):
+        ranges = np.where(scans[k] >= 1e29, np.inf, scans[k])
+        data, mask = standard_mask(geom, jnp.asarray(ranges))
+        if k == 0:
+            grid = push_j(grid, pose, data, mask)
+            got_poses.append(np.asarray(pose))
+            got_flags.append((0, 1))
+            continue
+
+        model = raycast_j(grid, pose)
+        scene, smask = data_to_cartesian(geom, data, mask)
+
+        # replay the harness's det_reset(seed + k) rand stream
+        _, mask_mp = pca_j(model.coords, model.mask)
+        sub, dr = replay_subsample(int(r_seed) + k, np.asarray(smask))
+        _, mask_sp_full = pca_j(scene, smask)
+        mask_sp = np.asarray(mask_sp_full) & sub
+        mask_mp_np = np.asarray(mask_mp)
+        idx_s_valid = [i for i in range(rr, N - rr) if mask_sp[i]]
+        idx_m_valid = [i for i in range(rr, N - rr) if mask_mp_np[i]]
+        ctrl, tidx = replay_picks(dr, idx_s_valid, idx_m_valid,
+                                  rparams.trials,
+                                  rparams.size_control_set)
+        C = rparams.size_control_set
+        T = rparams.trials
+        ctrl_idx = np.zeros(C, np.int32)
+        ctrl_idx[:len(ctrl)] = ctrl
+        trial_idx = np.zeros(T, np.int32)
+        trial_idx[:len(tidx)] = tidx
+        inject = RansacInject(
+            sub_mask=jnp.asarray(sub),
+            ctrl_idx=jnp.asarray(ctrl_idx),
+            ctrl_valid=jnp.asarray(np.arange(C) < len(ctrl)),
+            trial_idx=jnp.asarray(trial_idx),
+            trial_valid=jnp.asarray(np.arange(T) < len(tidx)))
+
+        T_pre = match_j(key0, grid, pose, model.coords, model.mask,
+                        scene, smask, inject)
+        res = loc_j(grid, pose, last_pose, data, mask, T_pre)
+        pose = res.pose
+        if bool(res.significant):
+            grid = push_j(grid, pose, data, mask)
+            last_pose = pose
+        got_poses.append(np.asarray(pose))
+        got_flags.append((int(bool(res.reg_error)),
+                          int(bool(res.significant))))
+    return (np.asarray(got_poses), np.asarray(got_flags),
+            np.asarray(golden["pose_trace"]).reshape(-1, 3, 3),
+            np.asarray(golden["flags"]))
+
+
+def loop_parity(got_poses, got_flags, ref_poses, ref_flags):
+    """The full-loop parity bounds: gate decisions equal scan for scan,
+    and |dpos|, |drot| (rotation-matrix entry) below 1e-4.  Returns
+    (ok, max |dpos|, max |drot|, gates_equal)."""
+    gates = bool(np.array_equal(got_flags, ref_flags[:, :2]))
+    dpos = float(np.abs(got_poses[:, :2, 2] - ref_poses[:, :2, 2]).max())
+    drot = float(np.abs(got_poses[:, 0, 0] - ref_poses[:, 0, 0]).max())
+    return gates and dpos < 1e-4 and drot < 1e-4, dpos, drot, gates

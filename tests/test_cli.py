@@ -6,7 +6,7 @@ import os
 
 import numpy as np
 
-from ohm_tsd_slam_tpu.__main__ import main
+from ohm_tsd_slam.__main__ import main
 
 
 def test_cli_simulate_and_run(tmp_path):
@@ -43,7 +43,7 @@ slam_node:
     # the text checkpoint round-trips through the reference-format loader
     import jax.numpy as jnp
 
-    from ohm_tsd_slam_tpu.grid.checkpoint import load_npz, load_text
+    from ohm_tsd_slam.grid.checkpoint import load_npz, load_text
 
     g1 = load_npz(os.path.join(out, "grid.npz"), dtype=jnp.float64)
     g2 = load_text(os.path.join(out, "grid_store.txt"), dtype=jnp.float64)
@@ -53,7 +53,7 @@ slam_node:
 def test_cli_ros_bridge_without_rclpy(capsys):
     """The ROS bridge degrades with a clear message when rclpy is
     missing (this image has no ROS)."""
-    from ohm_tsd_slam_tpu import ros_bridge
+    from ohm_tsd_slam import ros_bridge
 
     if ros_bridge.HAVE_ROS:  # pragma: no cover
         return

@@ -10,7 +10,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ohm_tsd_slam_tpu.grid.compact import compact_mask, compact_mask_values
+from ohm_tsd_slam.grid.compact import compact_mask, compact_mask_values
 
 
 @pytest.mark.parametrize("seed,density", [(0, 0.001), (1, 0.02),
@@ -61,138 +61,40 @@ def test_compact_overflow_keeps_first_k():
     np.testing.assert_array_equal(np.asarray(idx), np.nonzero(m)[0][:k])
 
 
-def _pushed_scene():
-    import math
-
-    from ohm_tsd_slam_tpu.config import GridConfig
-    from ohm_tsd_slam_tpu.core import se2
-    from ohm_tsd_slam_tpu.grid import create, push
-    from ohm_tsd_slam_tpu.sensor import polar2d
-    from ohm_tsd_slam_tpu.utils.testing import rect_walls, simulate_scan
-
-    geom = polar2d.SensorPolar2D(
-        size=541, angular_res=math.radians(270.0 / 541),
-        phi_min=math.radians(-135.0), max_range=12.0, min_range=0.01,
-        low_reflectivity_range=2.0)
-    grid = create(GridConfig(map_size=9, cellsize=0.02),
-                  dtype=jnp.float32)
-    walls = rect_walls(1.5, 1.5, 8.5, 8.5)
-    for pose_xyt in [(5.12, 5.12, 0.2), (5.3, 5.2, 0.5)]:
-        pose = np.array(se2.make(*pose_xyt, dtype=np.float64))
-        r = simulate_scan(pose, geom.size, geom.angular_res, geom.phi_min,
-                          geom.max_range, segments=walls,
-                          circles=[((7.0, 7.2), 0.5), ((3.0, 7.5), 0.35)])
-        data, mask = polar2d.standard_mask(geom, jnp.asarray(r, jnp.float32))
-        grid = push(grid, geom, jnp.asarray(pose, jnp.float32), data, mask)
-    return grid, geom
+@pytest.mark.parametrize("density", [0.01, 0.2, 0.7])
+def test_compact_values_carry_nan_channels(density):
+    """NaN value channels ride through the butterfly untouched (the
+    segment endpoints of NaN-adjacent quads are NaN before masking) and
+    never leak into slots of other entries."""
+    rng = np.random.default_rng(int(density * 100))
+    n = 128 * 48
+    m = rng.random(n) < density
+    v = rng.standard_normal(n)
+    v[rng.random(n) < 0.3] = np.nan
+    idx, vals, valid = compact_mask_values(jnp.asarray(m), jnp.asarray(v),
+                                           1024)
+    want = np.nonzero(m)[0][:1024]
+    ok = np.asarray(valid)
+    np.testing.assert_array_equal(np.asarray(idx)[ok], want)
+    # assert_array_equal treats NaNs in matching positions as equal
+    np.testing.assert_array_equal(np.asarray(vals)[ok], v[want])
 
 
-def test_compact_kernel_matches_jnp():
-    """ops/compact_pallas.py (interpret) vs grid/compact.py on the real
-    segment layers of a pushed grid (the production TPU compaction path
-    inside raycast_fast._isocontour_segments)."""
-    from ohm_tsd_slam_tpu.grid import raycast_fast as rf
-    from ohm_tsd_slam_tpu.ops.compact_pallas import compact_channels_pallas
-
-    grid, geom = _pushed_scene()
-    mask, chans = rf._segment_layers(grid)
-
-    K = 1024
-    _, vals, valid = compact_mask_values(mask, chans, K)
-    packed, count = compact_channels_pallas(mask, chans, K,
-                                            interpret=True)
-    assert int(count) == int(mask.sum())
-    got_valid = np.array(packed[4, :K] > 0)
-    np.testing.assert_array_equal(got_valid, np.array(valid))
-    for ch in range(4):
-        np.testing.assert_allclose(np.array(packed[ch, :K])[got_valid],
-                                   np.array(vals[ch])[np.array(valid)],
-                                   rtol=0, atol=0)
-
-
-def test_compact_kernel_overflow_drops_and_counts():
-    from ohm_tsd_slam_tpu.grid import raycast_fast as rf
-    from ohm_tsd_slam_tpu.ops.compact_pallas import compact_channels_pallas
-
-    grid, geom = _pushed_scene()
-    mask, chans = rf._segment_layers(grid)
-    total = int(mask.sum())
-    K = 128
-    assert total > K
-    packed, count = compact_channels_pallas(mask, chans, K,
-                                            interpret=True)
-    assert int(count) == total
-    # stored slots limited to capacity (plus the slack column block)
-    assert int((packed[4] > 0).sum()) <= K + 128
-
-
-def test_pack_channels_rows_matches_pallas_kernel():
-    """grid/compact.py::pack_channels_rows (the production TPU pack,
-    vectorized) must be bit-identical to the sequential-append Pallas
-    kernel across sparse/empty/full/overflow masks."""
-    from ohm_tsd_slam_tpu.grid.compact import pack_channels_rows
-    from ohm_tsd_slam_tpu.ops.compact_pallas import compact_channels_pallas
-
-    rng = np.random.default_rng(7)
-    for rows, p, size in [(1024, 0.03, 512), (1024, 0.0, 512),
-                          (1024, 1.0, 512), (4096, 0.01, 1024),
-                          (1024, 0.5, 256)]:
-        mask = jnp.asarray(rng.random(rows * 128) < p)
-        chans = tuple(jnp.asarray(
-            rng.standard_normal(rows * 128), jnp.float32)
-            for _ in range(4))
-        pk, ck = compact_channels_pallas(mask, chans, size,
-                                         interpret=True)
-        px, cx = pack_channels_rows(mask, chans, size)
-        assert int(ck) == int(cx)
-        np.testing.assert_array_equal(np.asarray(pk), np.asarray(px))
-
-
-def test_pack_rows_pallas_matches_xla_pack():
-    """ops/pack_rows_pallas.py (v2 block kernel, interpret mode) must be
-    bit-identical to grid/compact.py::pack_channels_rows."""
-    import numpy as np
-    import jax.numpy as jnp
-
-    from ohm_tsd_slam_tpu.grid.compact import pack_channels_rows
-    from ohm_tsd_slam_tpu.ops.pack_rows_pallas import (
-        pack_channels_rows_pallas,
-    )
-
-    rng = np.random.default_rng(3)
-    rows, chunk = 256, 128
-    n = rows * chunk
-    for density, size in ((0.02, 1024), (0.3, 512), (0.0, 256)):
-        mask = rng.random(n) < density
-        chans = tuple(jnp.asarray(rng.normal(size=n), jnp.float32)
-                      for _ in range(4))
-        ref, cnt_ref = pack_channels_rows(jnp.asarray(mask), chans, size)
-        got, cnt = pack_channels_rows_pallas(jnp.asarray(mask), chans,
-                                             size, interpret=True)
-        assert int(cnt) == int(cnt_ref) == int(mask.sum())
-        np.testing.assert_array_equal(np.asarray(got), np.asarray(ref))
-
-
-def test_onehot_pick_matches_gather_path():
-    """compact_mask_values' one-hot slot pick (the TPU path) must be
-    bit-identical to the serial-gather path."""
-    import numpy as np
-    import jax.numpy as jnp
-
-    import ohm_tsd_slam_tpu.grid.compact as gc
-
-    rng = np.random.default_rng(11)
-    n = 64 * 128
-    mask = jnp.asarray(rng.random(n) < 0.03)
-    vals = tuple(jnp.asarray(rng.normal(size=n)) for _ in range(3))
-    try:
-        gc.FORCE_ONEHOT_PICK = False
-        idx0, v0, ok0 = gc.compact_mask_values(mask, vals, 512)
-        gc.FORCE_ONEHOT_PICK = True
-        idx1, v1, ok1 = gc.compact_mask_values(mask, vals, 512)
-    finally:
-        gc.FORCE_ONEHOT_PICK = None
-    np.testing.assert_array_equal(np.asarray(idx0), np.asarray(idx1))
-    np.testing.assert_array_equal(np.asarray(ok0), np.asarray(ok1))
-    for a, b in zip(v0, v1):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+def test_compact_multi_channel_matches_nonzero():
+    """A tuple of channels (mixed dtypes) compacts through one
+    butterfly, each channel equal to indexing by jnp.nonzero."""
+    rng = np.random.default_rng(5)
+    n = 128 * 20
+    m = rng.random(n) < 0.1
+    chans = (rng.standard_normal(n).astype(np.float32),
+             rng.integers(0, 1000, n).astype(np.int32),
+             rng.standard_normal(n))
+    idx, vals, valid = compact_mask_values(
+        jnp.asarray(m), tuple(jnp.asarray(c) for c in chans), 512)
+    want = np.nonzero(m)[0]
+    ok = np.asarray(valid)
+    assert int(ok.sum()) == len(want)
+    np.testing.assert_array_equal(np.asarray(idx)[ok], want)
+    for got, c in zip(vals, chans):
+        assert got.dtype == c.dtype
+        np.testing.assert_array_equal(np.asarray(got)[ok], c[want])

@@ -10,14 +10,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ohm_tsd_slam_tpu.config import GridConfig, RegMode
-from ohm_tsd_slam_tpu.core import se2
-from ohm_tsd_slam_tpu.grid import create, push
-from ohm_tsd_slam_tpu.registration import GnParams, match_gauss_newton
-from ohm_tsd_slam_tpu.registration.icp import IcpParams
-from ohm_tsd_slam_tpu.sensor import polar2d
-from ohm_tsd_slam_tpu.slam.localize import LocalizeParams, localize_step
-from ohm_tsd_slam_tpu.utils.testing import rect_walls, simulate_scan
+from ohm_tsd_slam.config import GridConfig, RegMode
+from ohm_tsd_slam.core import se2
+from ohm_tsd_slam.grid import create, push
+from ohm_tsd_slam.registration import GnParams, match_gauss_newton
+from ohm_tsd_slam.registration.icp import IcpParams
+from ohm_tsd_slam.sensor import polar2d
+from ohm_tsd_slam.slam.localize import LocalizeParams, localize_step
+from ohm_tsd_slam.utils.testing import rect_walls, simulate_scan
 
 CFG = GridConfig(map_size=8, cellsize=0.04)
 GEOM = dict(size=361, angular_res=math.radians(0.75),

@@ -6,9 +6,9 @@ import math
 import jax.numpy as jnp
 import numpy as np
 
-from ohm_tsd_slam_tpu.core import se2
-from ohm_tsd_slam_tpu.registration import IcpParams, IcpState, icp
-from ohm_tsd_slam_tpu.utils.testing import rect_walls, simulate_scan
+from ohm_tsd_slam.core import se2
+from ohm_tsd_slam.registration import IcpParams, IcpState, icp
+from ohm_tsd_slam.utils.testing import rect_walls, simulate_scan
 from oracle.oracle_icp import OracleIcp
 
 SIZE = 271
@@ -151,7 +151,7 @@ def test_icp_point_to_line_estimator():
     # one-step oracle: exact correspondences (identity pairing), solve
     # the reference's 3x3 normal system A [psi tx ty]^T = b
     # (PointToLineEstimator2D.cpp:111-156)
-    from ohm_tsd_slam_tpu.registration.estimators import point_to_line_2d
+    from ohm_tsd_slam.registration.estimators import point_to_line_2d
     r = np.sum(normals * (scene - model), axis=1)
     a = scene[:, 0] * normals[:, 1] - scene[:, 1] * normals[:, 0]
     J = np.stack([a, normals[:, 0], normals[:, 1]], 1)

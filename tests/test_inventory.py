@@ -10,14 +10,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ohm_tsd_slam_tpu.config import GridConfig, RegMode, load_yaml
-from ohm_tsd_slam_tpu.core import se2
-from ohm_tsd_slam_tpu.core import cloud as pc
-from ohm_tsd_slam_tpu.grid import create, push, push_tree
-from ohm_tsd_slam_tpu.grid.push import branch_gate, tile_cull
-from ohm_tsd_slam_tpu.registration.amcl import AmclParams, match_amcl
-from ohm_tsd_slam_tpu.sensor import polar2d
-from ohm_tsd_slam_tpu.utils.testing import rect_walls, simulate_scan
+from ohm_tsd_slam.config import GridConfig, RegMode, load_yaml
+from ohm_tsd_slam.core import se2
+from ohm_tsd_slam.core import cloud as pc
+from ohm_tsd_slam.grid import create, push, push_tree
+from ohm_tsd_slam.grid.push import branch_gate, tile_cull
+from ohm_tsd_slam.registration.amcl import AmclParams, match_amcl
+from ohm_tsd_slam.sensor import polar2d
+from ohm_tsd_slam.utils.testing import rect_walls, simulate_scan
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -228,7 +228,7 @@ def test_cartesian_cloud_factory_codecs(tmp_path):
     (CartesianCloudFactory.cpp:36-92), including the z>0 validity rule."""
     import numpy as np
 
-    from ohm_tsd_slam_tpu.core.cloud import (
+    from ohm_tsd_slam.core.cloud import (
         CartesianCloud,
         load_cloud_ascii,
         save_cloud_ascii,

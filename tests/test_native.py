@@ -1,5 +1,5 @@
 """Tests for the native host-runtime library (native/obcore.cpp via
-ohm_tsd_slam_tpu.native).  The same assertions run against the C++
+ohm_tsd_slam.native).  The same assertions run against the C++
 backend when the toolchain built it and the pure-Python fallback
 otherwise; `test_native_backend_active` pins that the C++ path is the
 one under test in this environment.
@@ -11,7 +11,7 @@ import time
 
 import numpy as np
 
-from ohm_tsd_slam_tpu import native
+from ohm_tsd_slam import native
 
 
 def test_native_backend_active():

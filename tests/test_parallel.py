@@ -9,19 +9,19 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ohm_tsd_slam_tpu.config import GridConfig
-from ohm_tsd_slam_tpu.core import se2
-from ohm_tsd_slam_tpu.grid import create
-from ohm_tsd_slam_tpu.parallel import (
+from ohm_tsd_slam.config import GridConfig
+from ohm_tsd_slam.core import se2
+from ohm_tsd_slam.grid import create
+from ohm_tsd_slam.parallel import (
     make_mesh,
     make_sharded_step,
     multi_robot_slam_step,
     pose_gradient,
 )
-from ohm_tsd_slam_tpu.registration.icp import IcpParams
-from ohm_tsd_slam_tpu.sensor.polar2d import SensorPolar2D, standard_mask
-from ohm_tsd_slam_tpu.slam.localize import LocalizeParams
-from ohm_tsd_slam_tpu.utils.testing import rect_walls, simulate_scan
+from ohm_tsd_slam.registration.icp import IcpParams
+from ohm_tsd_slam.sensor.polar2d import SensorPolar2D, standard_mask
+from ohm_tsd_slam.slam.localize import LocalizeParams
+from ohm_tsd_slam.utils.testing import rect_walls, simulate_scan
 
 CFG = GridConfig(map_size=7, cellsize=0.05)
 GW = CFG.size_meters
@@ -51,7 +51,7 @@ def _robot_batch(R=4):
 
 def _base_grid():
     grid = create(CFG, dtype=jnp.float64)
-    from ohm_tsd_slam_tpu.grid import push
+    from ohm_tsd_slam.grid import push
 
     poses, data, mask = _robot_batch(1)
     return push(grid, GEOM, poses[0], data[0], mask[0])
@@ -89,7 +89,7 @@ def test_sharded_step_matches_single_device():
 def test_pose_gradient_finite_and_descending():
     """The map-residual pose gradient points downhill: stepping against
     it reduces the residual."""
-    from ohm_tsd_slam_tpu.parallel.sharded import map_residual_loss
+    from ohm_tsd_slam.parallel.sharded import map_residual_loss
 
     grid = _base_grid()
     poses, data, mask = _robot_batch(1)
@@ -135,13 +135,13 @@ def test_sharded_raycast_matches_single_device():
     import jax.numpy as jnp
     from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-    from ohm_tsd_slam_tpu.config import GridConfig
-    from ohm_tsd_slam_tpu.core import se2
-    from ohm_tsd_slam_tpu.grid import create, push
-    from ohm_tsd_slam_tpu.grid.raycast_fast import raycast_fast
-    from ohm_tsd_slam_tpu.parallel.shard_raycast import sharded_raycast
-    from ohm_tsd_slam_tpu.sensor import polar2d
-    from ohm_tsd_slam_tpu.utils.testing import rect_walls, simulate_scan
+    from ohm_tsd_slam.config import GridConfig
+    from ohm_tsd_slam.core import se2
+    from ohm_tsd_slam.grid import create, push
+    from ohm_tsd_slam.grid.raycast_fast import raycast_fast
+    from ohm_tsd_slam.parallel.shard_raycast import sharded_raycast
+    from ohm_tsd_slam.sensor import polar2d
+    from ohm_tsd_slam.utils.testing import rect_walls, simulate_scan
     import dataclasses
     import math
 
@@ -185,7 +185,7 @@ def test_sharded_raycast_matches_single_device():
 def test_sharded_step_outputs_stay_sharded():
     """The grid must remain row-sharded through the step — a silent
     all-gather/replicate of the full grid would still produce correct
-    values (VERDICT r1 weak #5); pin the output shardings."""
+    values; pin the output shardings."""
     import dataclasses
     import math
 
@@ -194,14 +194,14 @@ def test_sharded_step_outputs_stay_sharded():
     import numpy as np
     from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-    from ohm_tsd_slam_tpu.config import GridConfig
-    from ohm_tsd_slam_tpu.core import se2
-    from ohm_tsd_slam_tpu.grid import create
-    from ohm_tsd_slam_tpu.parallel.sharded import make_sharded_step
-    from ohm_tsd_slam_tpu.registration.icp import IcpParams
-    from ohm_tsd_slam_tpu.sensor import polar2d
-    from ohm_tsd_slam_tpu.slam.localize import LocalizeParams
-    from ohm_tsd_slam_tpu.utils.testing import rect_walls, simulate_scan
+    from ohm_tsd_slam.config import GridConfig
+    from ohm_tsd_slam.core import se2
+    from ohm_tsd_slam.grid import create
+    from ohm_tsd_slam.parallel.sharded import make_sharded_step
+    from ohm_tsd_slam.registration.icp import IcpParams
+    from ohm_tsd_slam.sensor import polar2d
+    from ohm_tsd_slam.slam.localize import LocalizeParams
+    from ohm_tsd_slam.utils.testing import rect_walls, simulate_scan
 
     cfg = GridConfig(map_size=7, cellsize=0.05)
     gw = cfg.size_meters
@@ -256,15 +256,15 @@ def test_sharded_step_gn_mode():
     import numpy as np
     from jax.sharding import Mesh
 
-    from ohm_tsd_slam_tpu.config import GridConfig, RegMode
-    from ohm_tsd_slam_tpu.core import se2
-    from ohm_tsd_slam_tpu.grid import create, push
-    from ohm_tsd_slam_tpu.parallel.sharded import make_sharded_step
-    from ohm_tsd_slam_tpu.registration.gauss_newton import GnParams
-    from ohm_tsd_slam_tpu.registration.icp import IcpParams
-    from ohm_tsd_slam_tpu.sensor import polar2d
-    from ohm_tsd_slam_tpu.slam.localize import LocalizeParams
-    from ohm_tsd_slam_tpu.utils.testing import rect_walls, simulate_scan
+    from ohm_tsd_slam.config import GridConfig, RegMode
+    from ohm_tsd_slam.core import se2
+    from ohm_tsd_slam.grid import create, push
+    from ohm_tsd_slam.parallel.sharded import make_sharded_step
+    from ohm_tsd_slam.registration.gauss_newton import GnParams
+    from ohm_tsd_slam.registration.icp import IcpParams
+    from ohm_tsd_slam.sensor import polar2d
+    from ohm_tsd_slam.slam.localize import LocalizeParams
+    from ohm_tsd_slam.utils.testing import rect_walls, simulate_scan
 
     cfg = GridConfig(map_size=7, cellsize=0.05)
     gw = cfg.size_meters
@@ -313,7 +313,7 @@ def test_sharded_step_gn_mode():
 @pytest.mark.parametrize("mode_name", ["EXP", "PDF", "TSD", "AMCL"])
 def test_sharded_step_matcher_modes_match_single_device(mode_name):
     """Every registration mode must produce the same result sharded as
-    on a single device (VERDICT r4 missing #2).  The grid-READING
+    on a single device.  The grid-READING
     matchers (TSD — the reference's shipped default mode,
     config/single-laser.yaml registration_mode: 3 — and AMCL) route
     through the shard-local tap paths of parallel/shard_matchers.py;
@@ -321,8 +321,8 @@ def test_sharded_step_matcher_modes_match_single_device(mode_name):
     reordered psum partial sums (f64 on CPU)."""
     import math as _math
 
-    from ohm_tsd_slam_tpu.config import BeamModelConfig, RegMode
-    from ohm_tsd_slam_tpu.registration.ransac import RansacParams
+    from ohm_tsd_slam.config import BeamModelConfig, RegMode
+    from ohm_tsd_slam.registration.ransac import RansacParams
 
     import dataclasses as _dc
 
@@ -368,14 +368,14 @@ def test_sharded_gn_matcher_matches_single_device_direct():
     from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
     import dataclasses
 
-    from ohm_tsd_slam_tpu.parallel.shard_matchers import (
+    from ohm_tsd_slam.parallel.shard_matchers import (
         sharded_match_gauss_newton,
     )
-    from ohm_tsd_slam_tpu.registration.gauss_newton import (
+    from ohm_tsd_slam.registration.gauss_newton import (
         GnParams,
         match_gauss_newton,
     )
-    from ohm_tsd_slam_tpu.sensor.polar2d import data_to_cartesian
+    from ohm_tsd_slam.sensor.polar2d import data_to_cartesian
 
     grid = _base_grid()
     poses, data, mask = _robot_batch(1)

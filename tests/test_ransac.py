@@ -15,10 +15,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ohm_tsd_slam_tpu.config import BeamModelConfig, GridConfig
-from ohm_tsd_slam_tpu.core import se2
-from ohm_tsd_slam_tpu.grid import create, push
-from ohm_tsd_slam_tpu.registration.ransac import (
+from ohm_tsd_slam.config import BeamModelConfig, GridConfig
+from ohm_tsd_slam.core import se2
+from ohm_tsd_slam.grid import create, push
+from ohm_tsd_slam.registration.ransac import (
     RansacParams,
     match_normal,
     match_pdf,
@@ -27,12 +27,12 @@ from ohm_tsd_slam_tpu.registration.ransac import (
     random_valid_subset,
     subsample_mask,
 )
-from ohm_tsd_slam_tpu.sensor.polar2d import (
+from ohm_tsd_slam.sensor.polar2d import (
     SensorPolar2D,
     data_to_cartesian,
     standard_mask,
 )
-from ohm_tsd_slam_tpu.utils.testing import rect_walls, simulate_scan
+from ohm_tsd_slam.utils.testing import rect_walls, simulate_scan
 
 B = 541
 
@@ -173,8 +173,8 @@ class TestMatchers:
 class TestLocalizeModes:
     @pytest.mark.parametrize("mode", [1, 2, 3])
     def test_localize_step_with_prereg(self, mode):
-        from ohm_tsd_slam_tpu.registration.icp import IcpParams
-        from ohm_tsd_slam_tpu.slam.localize import (
+        from ohm_tsd_slam.registration.icp import IcpParams
+        from ohm_tsd_slam.slam.localize import (
             LocalizeParams,
             localize_step,
         )
@@ -207,7 +207,7 @@ class TestLocalizeModes:
 
 class TestTwinPoint:
     def test_recovers_transform(self):
-        from ohm_tsd_slam_tpu.registration.twinpoint import match_twinpoint
+        from ohm_tsd_slam.registration.twinpoint import match_twinpoint
 
         geom, _, M, Mmask, S, Smask = _scan_clouds(POSE_M, POSE_S)
         T_true = np.array(se2.invert(POSE_M) @ POSE_S)
@@ -220,7 +220,7 @@ class TestTwinPoint:
                         T[1, 2] - T_true[1, 2]) < 0.05
 
     def test_too_few_points_identity(self):
-        from ohm_tsd_slam_tpu.registration.twinpoint import (
+        from ohm_tsd_slam.registration.twinpoint import (
             MIN_VALID_POINTS,
             match_twinpoint,
         )

@@ -7,11 +7,11 @@ import math
 import jax.numpy as jnp
 import numpy as np
 
-from ohm_tsd_slam_tpu.config import GridConfig
-from ohm_tsd_slam_tpu.core import se2
-from ohm_tsd_slam_tpu.grid import create, push, raycast
-from ohm_tsd_slam_tpu.sensor import polar2d
-from ohm_tsd_slam_tpu.utils.testing import rect_walls, simulate_scan
+from ohm_tsd_slam.config import GridConfig
+from ohm_tsd_slam.core import se2
+from ohm_tsd_slam.grid import create, push, raycast
+from ohm_tsd_slam.sensor import polar2d
+from ohm_tsd_slam.utils.testing import rect_walls, simulate_scan
 from oracle.oracle_grid import OracleGrid, OracleSensor
 
 CFG = GridConfig(map_size=7, cellsize=0.05, truncation_radius=3.0)

@@ -23,14 +23,14 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from ohm_tsd_slam_tpu.config import GridConfig
-from ohm_tsd_slam_tpu.grid import state as grid_state
-from ohm_tsd_slam_tpu.grid.axis_aligned import occupancy_grid
-from ohm_tsd_slam_tpu.grid.checkpoint import load_text
-from ohm_tsd_slam_tpu.grid.push import push
-from ohm_tsd_slam_tpu.grid.raycast import raycast
-from ohm_tsd_slam_tpu.grid.raycast_fast import raycast_fast
-from ohm_tsd_slam_tpu.sensor.polar2d import SensorPolar2D, standard_mask
+from ohm_tsd_slam.config import GridConfig
+from ohm_tsd_slam.grid import state as grid_state
+from ohm_tsd_slam.grid.axis_aligned import occupancy_grid
+from ohm_tsd_slam.grid.checkpoint import load_text
+from ohm_tsd_slam.grid.push import push
+from ohm_tsd_slam.grid.raycast import raycast
+from ohm_tsd_slam.grid.raycast_fast import raycast_fast
+from ohm_tsd_slam.sensor.polar2d import SensorPolar2D, standard_mask
 
 from golden_io import ROOM_BIN, ROOM_STORE, Scenario, load_golden
 
@@ -169,7 +169,7 @@ def test_raycast_fast_parity(golden, scenario, geom, pushed_grids, q):
 
 def test_axis_aligned_parity(golden, pushed_grids):
     grid = pushed_grids["final"]
-    from ohm_tsd_slam_tpu.grid.axis_aligned import surface_points
+    from ohm_tsd_slam.grid.axis_aligned import surface_points
 
     res = occupancy_grid(grid)
     # char grid: the reference writes 0 (free) / -1 (unknown); occupied

@@ -26,7 +26,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from ohm_tsd_slam_tpu.registration.icp import IcpParams, icp
+from ohm_tsd_slam.registration.icp import IcpParams, icp
 
 from golden_io import GOLDEN_DIR, load_golden
 

@@ -8,12 +8,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ohm_tsd_slam_tpu.config import GridConfig
-from ohm_tsd_slam_tpu.core import se2
-from ohm_tsd_slam_tpu.grid import create, push
-from ohm_tsd_slam_tpu.grid.render import render_ranges
-from ohm_tsd_slam_tpu.sensor import polar2d
-from ohm_tsd_slam_tpu.utils.testing import rect_walls, simulate_scan
+from ohm_tsd_slam.config import GridConfig
+from ohm_tsd_slam.core import se2
+from ohm_tsd_slam.grid import create, push
+from ohm_tsd_slam.grid.render import render_ranges
+from ohm_tsd_slam.sensor import polar2d
+from ohm_tsd_slam.utils.testing import rect_walls, simulate_scan
 
 CFG = GridConfig(map_size=8, cellsize=0.04)
 GEOM = dict(size=181, angular_res=math.radians(1.5),
@@ -114,7 +114,7 @@ def test_miss_beams_zero_gradient(scene):
 def test_forward_matches_raycast(scene):
     grid, geom = scene
     pose = se2.make(5.2, 5.05, 0.15, dtype=jnp.float64)
-    from ohm_tsd_slam_tpu.grid.raycast import raycast
+    from ohm_tsd_slam.grid.raycast import raycast
 
     ranges, hit, _ = render_ranges(grid, geom, pose, use_fast=False,
                                    refine=False)
@@ -128,7 +128,7 @@ def test_cached_segments_match_inline_extraction(scene):
     """render_ranges(segments=...) (pose-only optimization against a
     fixed grid) must produce the same forward values and pose
     gradients as inline extraction."""
-    from ohm_tsd_slam_tpu.grid.raycast_fast import extract_segments
+    from ohm_tsd_slam.grid.raycast_fast import extract_segments
 
     grid, geom = scene
     pose = se2.make(5.2, 5.05, 0.15, dtype=jnp.float64)

@@ -12,7 +12,7 @@ import types
 import numpy as np
 import pytest
 
-from ohm_tsd_slam_tpu.config import (
+from ohm_tsd_slam.config import (
     GridConfig,
     IcpConfig,
     RegistrationConfig,
@@ -20,8 +20,8 @@ from ohm_tsd_slam_tpu.config import (
     SensorConfig,
     SlamConfig,
 )
-from ohm_tsd_slam_tpu.core import se2
-from ohm_tsd_slam_tpu.utils.testing import rect_walls, simulate_scan
+from ohm_tsd_slam.core import se2
+from ohm_tsd_slam.utils.testing import rect_walls, simulate_scan
 
 BEAMS = 241
 RES = math.radians(1.0)
@@ -140,7 +140,7 @@ def bridge_module(monkeypatch):
     for k, v in mods.items():
         monkeypatch.setitem(sys.modules, k, v)
 
-    import ohm_tsd_slam_tpu.ros_bridge as rb
+    import ohm_tsd_slam.ros_bridge as rb
 
     rb = importlib.reload(rb)
     assert rb.HAVE_ROS

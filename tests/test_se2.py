@@ -1,7 +1,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from ohm_tsd_slam_tpu.core import se2
+from ohm_tsd_slam.core import se2
 
 
 def test_make_invert_compose():

@@ -6,9 +6,9 @@ import math
 import jax.numpy as jnp
 import numpy as np
 
-from ohm_tsd_slam_tpu.core import se2
-from ohm_tsd_slam_tpu.sensor import polar2d
-from ohm_tsd_slam_tpu.utils.testing import rect_walls, simulate_scan
+from ohm_tsd_slam.core import se2
+from ohm_tsd_slam.sensor import polar2d
+from ohm_tsd_slam.utils.testing import rect_walls, simulate_scan
 from oracle.oracle_grid import OracleSensor
 
 GEOM = dict(size=181, angular_res=math.radians(1.0),

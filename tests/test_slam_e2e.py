@@ -8,7 +8,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ohm_tsd_slam_tpu.config import (
+from ohm_tsd_slam.config import (
     GridConfig,
     RegistrationConfig,
     IcpConfig,
@@ -16,9 +16,9 @@ from ohm_tsd_slam_tpu.config import (
     SensorConfig,
     SlamConfig,
 )
-from ohm_tsd_slam_tpu.core import se2
-from ohm_tsd_slam_tpu.slam import LaserScan, SlamNode
-from ohm_tsd_slam_tpu.utils.testing import rect_walls, simulate_scan
+from ohm_tsd_slam.core import se2
+from ohm_tsd_slam.slam import LaserScan, SlamNode
+from ohm_tsd_slam.utils.testing import rect_walls, simulate_scan
 
 BEAMS = 361
 RES = math.radians(0.75)
@@ -170,9 +170,9 @@ def test_slam_start_stop():
 def test_slam_mode_tsd_f32():
     """End-to-end trajectory in the reference's shipped default mode
     (registration_mode: 3, config/single-laser.yaml) at the production
-    dtype float32 (VERDICT r1 weak #4)."""
+    dtype float32."""
     import dataclasses
-    from ohm_tsd_slam_tpu.config import RansacConfig, RegMode
+    from ohm_tsd_slam.config import RansacConfig, RegMode
 
     cfg = dataclasses.replace(
         CFG,
@@ -201,7 +201,7 @@ def test_slam_mode_tsd_f32():
 def test_slam_distinct_keys_per_scan(monkeypatch):
     """The stochastic matchers must receive a fresh PRNG key per scan
     (the r1 bug: every scan reused PRNGKey(0))."""
-    from ohm_tsd_slam_tpu.slam import node as node_mod
+    from ohm_tsd_slam.slam import node as node_mod
 
     seen = []
     orig = node_mod.localize_step_jit
@@ -226,7 +226,7 @@ def test_slam_odom_rescue():
     rescued by the odometry delta instead (OdometryAnalyzer semantics;
     reference call sites ThreadLocalize.cpp:263-265,334-336,586-588)."""
     import dataclasses
-    from ohm_tsd_slam_tpu.config import OdomRescueConfig
+    from ohm_tsd_slam.config import OdomRescueConfig
 
     cfg = dataclasses.replace(
         CFG, robots=[dataclasses.replace(
@@ -260,9 +260,9 @@ def test_slam_odom_rescue():
 def test_slam_amcl_recovers_kidnap():
     """RegMode.AMCL reachable from config: after a 0.5 m kidnap (beyond
     plain ICP's convergence basin) the particle matcher relocalizes
-    (VERDICT r1 #9)."""
+   ."""
     import dataclasses
-    from ohm_tsd_slam_tpu.config import AmclConfig, RegMode
+    from ohm_tsd_slam.config import AmclConfig, RegMode
 
     cfg = dataclasses.replace(
         CFG, robots=[dataclasses.replace(
@@ -407,7 +407,7 @@ def test_tf_map_odom_broadcast():
     # registration failure (NaN pose sentinel) => NaN tf
     # (sendNanTransform; the reg-error e2e path is covered elsewhere —
     # here the sentinel is fed directly)
-    from ohm_tsd_slam_tpu.slam.messages import PoseStamped
+    from ohm_tsd_slam.slam.messages import PoseStamped
     node._broadcast_tf(0, node.localizers[0],
                        PoseStamped(math.nan, math.nan, math.nan), 3.0)
     assert math.isnan(tfs[-1].x) and math.isnan(tfs[-1].theta)
